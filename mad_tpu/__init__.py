@@ -1,12 +1,13 @@
-"""mad_tpu — TPU-native macromolecular docking framework.
+"""mad_tpu — accelerator-native macromolecular docking framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of LBM-EPFL/MaD
-(rigid fitting of atomic subunits into intermediate-resolution cryo-EM maps
-via rotation-invariant 3D density descriptors), built TPU-first:
+A from-scratch JAX/XLA re-design of the capabilities of LBM-EPFL/MaD (rigid
+fitting of atomic subunits into intermediate-resolution cryo-EM maps via
+rotation-invariant 3D density descriptors), running on one GPU or a mesh of
+them:
 
   * batched/vmapped kernels with static shapes instead of per-anchor Python
     loops (detection, orientation, descriptors, matching, refinement);
-  * MXU matmuls for descriptor similarity and pose scoring;
+  * device matmuls for descriptor similarity and pose scoring;
   * device-mesh sharding (jax.sharding + shard_map) for volumes, descriptor
     pairs and pose candidates — the reference has no parallelism at all.
 

@@ -169,9 +169,8 @@ class MaD:
         # Concurrent AOT replay of the recorded program inventory (cold
         # start is compile-bound; see utils/warmup.py). STAGED: the map
         # preprocessing chain (simulate + grid crop) warms alone first so
-        # it never queues behind the describe/dock inventory on the
-        # serializing compile service; the rest starts right after the
-        # preprocessing dispatches.
+        # it never queues behind the describe/dock compiles; the rest
+        # starts right after the preprocessing dispatches.
         if self.config.warm_start:
             from .utils.warmup import replay
             replay(block=False, only=("simulate", "grid"))
@@ -206,9 +205,9 @@ class MaD:
         self._warm_start(key)
 
         # Map, subunit and ensemble-frame describe chains are independent;
-        # cache misses run on a small thread pool so their host-relay syncs
-        # overlap (engine/pipeline.describe_many; serialized again above the
-        # HBM guard). h5 saves stay on this thread.
+        # cache misses run on a small thread pool so their host work
+        # overlaps (engine/pipeline.describe_many; serialized above its
+        # device-memory gate). h5 saves stay on this thread.
         from .ops.simulate import simulated_shape
         jobs = []          # (key, h5 path, fn, est. voxels, keep_path_only)
 
@@ -249,8 +248,7 @@ class MaD:
 
         # ensembles: store the cache path per frame (memory-friendly,
         # parity mad/MaD.py:158-162); cache-miss frames run through the
-        # same pool as subunits so a 7-frame ensemble costs ~max(frame),
-        # not sum(frames), of relay latency.
+        # same pool as subunits so their host work overlaps.
         for ek, ensemble in self.processed_ensembles.items():
             print(f"\nMaD> Describing ensemble {ek}")
             for fk, (pdb_path, _n) in ensemble.items():
@@ -268,7 +266,7 @@ class MaD:
                     jobs, describe_many([j[2] for j in jobs],
                                         voxels=[j[3] for j in jobs])):
                 dsc_cache.save_descriptors(ds, path)
-                if path_only:
+                if path_only and dsc_cache.h5py is not None:
                     pass                     # dsc_dict already holds path
                 elif k:
                     self.dsc_dict[k] = ds
@@ -278,9 +276,9 @@ class MaD:
     def _warm_start(self, key) -> None:
         """Kick off concurrent AOT compilation of the describe-side
         programs for every structure that is not in the descriptor cache
-        (non-blocking; remote compile round-trips overlap the host-side
-        prep work and each other). New capability — cold starts are
-        compile-bound on TPU hosts; the reference has no compile step.
+        (non-blocking; compiles overlap the host-side prep work and each
+        other). New capability — cold starts are compile-bound; the
+        reference has no compile step.
 
         Under a mesh, the PREDICTIVE inventory below is single-device
         only, so it is skipped — but the manifest replay run() already

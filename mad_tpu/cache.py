@@ -3,7 +3,8 @@
 Parity with the reference's dsc_db/ store (mad/MaD.py:116-162, 848-875,
 mad/Descriptor.py:226-254): same dataset names ('dsc', 'info', 'coords',
 'rot') and the same parameter-string file naming, so cached runs short-cut
-the describe pipeline identically.
+the describe pipeline identically. h5py is optional: without it the save
+functions write nothing, so every lookup misses and the pipeline computes.
 """
 
 from __future__ import annotations
@@ -44,6 +45,8 @@ def matching_filename(out_folder: str, key: str, cc_threshold: float,
 def save_matching(table, path: str) -> None:
     """Persist a MatchTable (working version of the reference's
     commented-out matching cache, mad/MaD.py:386-399, 877-889)."""
+    if h5py is None:
+        return
     with h5py.File(path, "w") as hf:
         hf.create_dataset("cc", data=table.cc)
         hf.create_dataset("repeat", data=table.repeat)
@@ -69,6 +72,8 @@ def load_matching(path: str):
 
 
 def save_descriptors(ds: DescriptorSet, path: str) -> None:
+    if h5py is None:
+        return
     with h5py.File(path, "w") as hf:
         # ds.desc may carry 128-bucket zero padding rows (device frame);
         # the h5 schema stores the exact-count table (reference parity).
@@ -139,6 +144,8 @@ def dock_state_hash(struct_coords: np.ndarray, n_copies: int,
 def save_solutions(sols, path: str) -> None:
     """Persist a docked subunit's Solution list (engine/docking.Solution):
     refined coords, scores and the ragged corresp-anchor / member tables."""
+    if h5py is None:
+        return
     with h5py.File(path, "w") as hf:
         hf.attrs["n"] = len(sols)
         if not sols:

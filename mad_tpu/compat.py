@@ -1,7 +1,7 @@
 """Record-style views over the struct-of-arrays descriptor tables.
 
 The reference models every anchor as a mutable ``DensityFeature`` object
-(mad/DensityFeature.py:5-143); the TPU pipeline keeps struct-of-arrays
+(mad/DensityFeature.py:5-143); this pipeline keeps struct-of-arrays
 (engine/pipeline.DescriptorSet) for batched kernels. This module offers the
 familiar per-anchor record view for users migrating from the reference,
 including the ASCII occupancy rendering and per-record debug dumps.

@@ -1,4 +1,4 @@
-"""Typed configuration for the MaD-TPU pipeline.
+"""Typed configuration for the mad_tpu pipeline.
 
 The reference (LBM-EPFL/MaD) passes all knobs as ``run()`` kwargs with
 defaults spread over constructors (``mad/MaD.py:87``, ``mad/Orientator.py:13``,
@@ -17,56 +17,44 @@ import jax
 
 # The pipeline's numerics assume float32 accumulation: LoG peak thresholds,
 # subvoxel Newton solves and pose rotations all sit well below bf16
-# resolution. Individual hot matmuls (descriptor similarity) opt back into
-# reduced precision explicitly where profiling justifies it.
+# resolution. On the GPU any lower setting lets float32 products run as
+# single-pass TF32 (about three decimal digits). Call sites that choose
+# their own precision name it (engine/match.SIMILARITY_PRECISION).
 jax.config.update("jax_default_matmul_precision", "highest")
 
-def _host_tag() -> str:
-    """Short hash of this host's CPU architecture + feature flags.
-
-    The persistent XLA cache stores XLA:CPU AOT blobs whose code targets the
-    *compiling* machine's features; loading them on a host with different
-    features risks SIGILL (observed as loader warnings when ~/.cache moved
-    between machines). Keying the default cache directory by the host
-    signature keeps every directory single-machine."""
-    import hashlib
-    import platform as _platform
-    sig = _platform.machine()
-    try:
-        with open("/proc/cpuinfo") as f:
-            for line in f:
-                if line.startswith(("flags", "Features")):
-                    sig += " " + " ".join(sorted(line.split(":", 1)[1].split()))
-                    break
-    except OSError:  # pragma: no cover - non-Linux
-        pass
-    return hashlib.sha1(sig.encode()).hexdigest()[:10]
+_CHECKOUT = _os.path.dirname(_os.path.dirname(_os.path.dirname(
+    _os.path.abspath(__file__))))
 
 
 def cache_root() -> str:
-    """Root directory for all persistent state (XLA cache, warm manifest,
-    HLO blobs, frame memory). ``MAD_TPU_CACHE`` overrides; the default is
-    keyed by host machine features (see _host_tag)."""
-    base = _os.environ.get("MAD_TPU_CACHE")
-    if base:
-        return base
-    return _os.path.expanduser("~/.cache/mad_tpu_xla-" + _host_tag())
+    """Root directory for the program's persistent state (warm manifest,
+    HLO blobs, frame memory, and the XLA cache unless
+    ``JAX_COMPILATION_CACHE_DIR`` names another). ``MAD_TPU_CACHE``
+    overrides; the default is one fixed directory inside the checkout, so
+    repeat runs from the same checkout find it again."""
+    return _os.environ.get("MAD_TPU_CACHE") or _os.path.join(_CHECKOUT,
+                                                             ".jax_cache")
+
+
+def xla_cache_dir() -> str:
+    """Where the persistent XLA compilation cache lives: the directory
+    ``JAX_COMPILATION_CACHE_DIR`` names (JAX reads it itself and this
+    module sets nothing), else ``<cache_root>/xla``."""
+    return (_os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or _os.path.join(cache_root(), "xla"))
 
 
 # Persistent compilation cache: the pipeline compiles one program per
 # (bucketed) grid shape; caching them across processes turns repeat runs
-# from minutes of XLA compilation into milliseconds of cache hits. CPU runs
-# (tests, multichip dryruns) skip it: XLA:CPU AOT blobs bake tuning
-# pseudo-features (+prefer-no-scatter/-gather) into their target machine
-# list, so the loader flags every reload as a machine mismatch — and CPU
-# compiles are local and fast, the cache only pays off on remote-compile
-# TPU backends.
-try:
-    if "cpu" not in _os.environ.get("JAX_PLATFORMS", "").lower():
-        jax.config.update("jax_compilation_cache_dir", cache_root())
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-except Exception:  # pragma: no cover - older jax without the option
-    pass
+# from minutes of XLA compilation into cache hits. CPU runs (tests,
+# virtual-mesh dryruns) skip it: XLA:CPU executables bake tuning
+# pseudo-features into their target machine list, so the loader flags
+# every reload as a machine mismatch, and CPU compiles of the test shapes
+# are fast anyway.
+if ("cpu" not in _os.environ.get("JAX_PLATFORMS", "").lower()
+        and not _os.environ.get("JAX_COMPILATION_CACHE_DIR")):
+    jax.config.update("jax_compilation_cache_dir", xla_cache_dir())
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 
 def set_nan_checks(enabled: bool = True) -> None:
@@ -106,7 +94,7 @@ class DetectConfig:
     exclude_border: int = 12       # voxels excluded at each octave border
     max_offset: float = 0.6        # Newton subvoxel offset acceptance bound
     newton_iters: int = 5          # max Newton relocalization steps
-    max_anchors: int = 4096        # static per-octave anchor capacity (new: TPU)
+    max_anchors: int = 4096        # static per-octave anchor capacity (new)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +199,7 @@ class MadConfig:
     refine: RefineConfig = RefineConfig()
     assembly: AssemblyConfig = AssemblyConfig()
     # Concurrent AOT compilation of the describe-side programs at session
-    # start (utils/warmup.py); cold starts on TPU hosts are compile-bound.
+    # start (utils/warmup.py); cold starts are compile-bound.
     warm_start: bool = True
 
     # Bucketing granularity for grid shapes; bounds XLA recompiles when

@@ -253,8 +253,8 @@ def _dock_structure_fused(map_set: DescriptorSet, sub_set: DescriptorSet,
     # overflow redoes the refinement through the host path this call and
     # right-sizes the NEXT process (pipeline frame-memory pattern). The
     # frame is ADOPTED once per process — a rung written at the end of one
-    # pass must not change the next pass's program shapes (that recompile
-    # is a multi-minute deferred compile on remote-compile backends).
+    # pass must not change the next pass's program shapes (that would be a
+    # fresh compile inside a warm pass).
     # The map shape is part of the key: systems that share structure NAMES
     # but not sizes (e.g. bench.py's north-star map vs stress_large.py's
     # 44 M-voxel map, both "bench_map") must not trade rungs — an oversized

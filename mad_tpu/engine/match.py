@@ -1,8 +1,8 @@
 """Descriptor matching + pose repeatability scoring.
 
 Replaces MaD._match_dsc (mad/MaD.py:414-453):
-  * cosine similarity between all (subunit, map) descriptor pairs — one MXU
-    matmul instead of np.dot on host;
+  * cosine similarity between all (subunit, map) descriptor pairs — one
+    device matmul instead of np.dot on host;
   * candidate pairs above cc_threshold selected into a static-capacity
     buffer via per-row + global top_k (the reference walks np.where output);
   * per pair, relative pose R = R_lo^T @ R_hi and repeatability = % of the
@@ -25,10 +25,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..core.config import MatchConfig, bucket
 from ..parallel.mesh import batch_bucket, mesh_axis
@@ -69,15 +66,22 @@ class MatchTable:
             hi_cloud=self.hi_cloud, lo_cloud=self.lo_cloud)
 
 
+# Precision of the descriptor-cosine matmul. It must keep cosines within
+# 1e-4 of float64 so the 0.6 threshold selects the same pairs. On the GPU
+# Precision.HIGH (like DEFAULT) compiles to a single-pass TF32 cuBLAS gemm,
+# 5e-4 off on the bench descriptor sets and enough to flip pairs at the
+# threshold; HIGHEST is a float32 gemm, 7e-7 off, and takes 0.24-0.36 ms
+# for the bench's (361 x 4559 x 1024) product on an H100 (700 W).
+SIMILARITY_PRECISION = lax.Precision.HIGHEST
+
+
 @functools.lru_cache(maxsize=16)
 @warmable
 def _compiled_similarity(dh: int, dl: int, row_cap: int, max_pairs: int,
                          threshold: float):
     def run(hi, lo):
-        # bf16x3 passes keep descriptor cosines accurate to ~1e-5 against
-        # a 0.6 threshold; full f32 ("highest") is ~2x slower on MXU.
         sim = jnp.dot(hi, lo.T, preferred_element_type=jnp.float32,
-                      precision=lax.Precision.HIGH)
+                      precision=SIMILARITY_PRECISION)
         k = min(row_cap, dl)
         vals, cols = lax.top_k(sim, k)                    # (dh, k)
         flat = vals.reshape(-1)
@@ -251,7 +255,7 @@ def _compiled_select_exact(p: int, pe: int):
 def match_pairs(map_set: DescriptorSet, sub_set: DescriptorSet,
                 cfg: MatchConfig, mesh: Optional[Mesh] = None
                 ) -> Optional[dict]:
-    """Similarity stage shared by the split and fused docking paths: MXU
+    """Similarity stage shared by the split and fused docking paths: device
     cosine matmul + thresholded top-pair selection (ONE host pull), then the
     host-side pose data every consumer needs — per-pair rotation
     R = R_lo^T R_hi, anchor coords, and the unique anchor clouds
@@ -327,9 +331,10 @@ def match_descriptors(map_set: DescriptorSet, sub_set: DescriptorSet,
 
     mesh: optional device mesh. The similarity matmul runs with the subunit
     rows sharded across devices (GSPMD partitions the SAME compiled kernel;
-    per-row top_k is shard-local, the global top-k reduces over ICI) and the
-    repeatability kernels run shard_map'ed over the pair axis. Results equal
-    the single-device path (up to ties between equal similarities)."""
+    per-row top_k is shard-local, the global top-k reduces across devices)
+    and the repeatability kernels run shard_map'ed over the pair axis.
+    Results equal the single-device path (up to ties between equal
+    similarities)."""
     pairs = match_pairs(map_set, sub_set, cfg, mesh)
     if pairs is None:
         return _empty_table()

@@ -1,8 +1,9 @@
 """Native host-runtime components (C extension, built on first use).
 
-The TPU compute path is JAX/XLA; this package holds the native host-side
+The device compute path is JAX/XLA; this package holds the native host-side
 runtime pieces (fast structure/volume parsers). The extension compiles once
-into a per-version cache directory and loads from there; every consumer has
+into a per-version directory under the program's cache root and loads from
+there; every consumer has
 a pure-Python fallback, so the absence of a toolchain only costs speed.
 """
 
@@ -14,10 +15,12 @@ import subprocess
 import sys
 import sysconfig
 
+from ..core.config import cache_root
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CACHE = os.path.join(
     os.environ.get("MAD_TPU_NATIVE_CACHE",
-                   os.path.expanduser("~/.cache/mad_tpu_native")),
+                   os.path.join(cache_root(), "native")),
     f"py{sys.version_info.major}{sys.version_info.minor}")
 
 fastio = None

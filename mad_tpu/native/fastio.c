@@ -1,11 +1,10 @@
 /* fastio — native host-side parsers for the mad_tpu runtime.
  *
- * The TPU compute path is JAX/XLA; this extension covers the host I/O that
- * sits in front of it (the reference does this in pure Python:
+ * The device compute path is JAX/XLA; this extension covers the host I/O
+ * that sits in front of it (the reference does this in pure Python:
  * mad/PDB.py:41-69 fixed-column PDB parsing, mad/Dmap.py:13-24 Situs text
  * volumes). Large ensembles re-parse hundreds of PDB frames per run, so the
- * parser matters for end-to-end latency on the single-core hosts TPU VMs
- * often expose.
+ * parser matters for end-to-end latency when the host has few cores.
  *
  * Exposed functions:
  *   parse_pdb_bytes(data: bytes) ->

@@ -2,18 +2,15 @@
 
 All volume filtering in the pipeline (Gaussian smoothing, scale-normalized
 LoG, density-simulation blur, x2 upsampling) reduces to 1D convolutions along
-each axis; XLA maps these onto efficient fused TPU loops. Kernels are built
-host-side with numpy (tiny) and closed over by jitted callers.
+each axis, written as shift-and-add over the kernel taps: XLA fuses each
+axis into one memory-bound loop. Kernels are built host-side with numpy
+(tiny) and closed over by jitted callers.
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
-import jax
 import jax.numpy as jnp
-from jax import lax
 
 
 def gaussian_kernel1d(sigma: float, order: int = 0, truncate: float = 4.0
@@ -44,38 +41,6 @@ def gaussian_kernel1d(sigma: float, order: int = 0, truncate: float = 4.0
     return (q * phi).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
-def _banded_matrix(kernel_bytes: bytes, ksz: int, n: int, mode: str
-                   ) -> np.ndarray:
-    """(n, out_n) banded matrix B with contract(vol, B) == conv1d(vol, k):
-    B[j, i] = k[ksz-1-(j-i+lo)] wherever that index is in range."""
-    k = np.frombuffer(kernel_bytes, dtype=np.float32, count=ksz)
-    r = ksz // 2
-    lo = r if mode == "same" else ksz - 1
-    out_n = n if mode == "same" else n + ksz - 1
-    B = np.zeros((n, out_n), dtype=np.float32)
-    j = np.arange(n)[:, None]
-    i = np.arange(out_n)[None, :]
-    m = j - i + lo
-    inside = (m >= 0) & (m < ksz)
-    B[inside] = k[ksz - 1 - m[inside]]
-    return B
-
-
-def _banded_ok(n: int, ksz: int) -> bool:
-    """Banded-matmul convs pay off where the MXU's throughput dwarfs the
-    tap count: one volume read per conv regardless of kernel width, vs one
-    fused pass per tap for the shift-add. On CPU (the virtual-mesh test
-    backend) a dense (n, n) contraction per voxel row is far slower than
-    the tap loop, so the shift-add stays."""
-    if ksz < 7 or n < 64:
-        return False
-    try:
-        return jax.default_backend() != "cpu"
-    except Exception:       # pragma: no cover - backend init failure
-        return False
-
-
 def conv1d_along(vol: jnp.ndarray, kernel: np.ndarray, axis: int,
                  mode: str = "same") -> jnp.ndarray:
     """Convolve a 3D volume with a 1D kernel along one axis.
@@ -83,23 +48,11 @@ def conv1d_along(vol: jnp.ndarray, kernel: np.ndarray, axis: int,
     mode: 'same' (zero-padded, output size preserved) or 'full'
     (output grows by len(kernel)-1, matching scipy.signal.convolve 'full').
 
-    On TPU, wide kernels contract against a banded (n, out_n) matrix on
-    the MXU: ONE volume pass per conv regardless of tap count (a 15-tap
-    Gaussian as shift-add costs 15 fused passes of HBM traffic; the
-    banded matmul reads the volume once and the systolic array absorbs
-    the taps). Elsewhere — and for narrow kernels — the shift-and-add
-    slice-weighted-sum runs near memory speed on the VPU (single-channel
-    1D convolutions lower poorly through the TPU conv path, ~100x off
-    bandwidth).
+    The slice-weighted sum over the taps fuses into one loop per call that
+    reads each voxel once and writes it once.
     """
     k = np.asarray(kernel)
     ksz = k.shape[0]
-    if _banded_ok(vol.shape[axis], ksz):
-        B = _banded_matrix(k.astype(np.float32).tobytes(), ksz,
-                           vol.shape[axis], mode)
-        out = jnp.tensordot(vol, B, axes=((axis,), (0,)),
-                            precision=lax.Precision.HIGHEST)
-        return jnp.moveaxis(out, -1, axis)
     r = ksz // 2
     if mode == "same":
         lo, hi = r, ksz - 1 - r
@@ -167,29 +120,10 @@ _CR_HALF = np.array([-1.0 / 16, 9.0 / 16, 9.0 / 16, -1.0 / 16],
                     dtype=np.float32)
 
 
-@functools.lru_cache(maxsize=32)
-def _upsample_matrix(n: int) -> np.ndarray:
-    """(n, 2n-1) x2-upsampling matrix: identity on even columns, the
-    Catmull-Rom half-sample taps (edge replication folded in) on odd ones
-    — the whole upsample along one axis is then ONE banded contraction."""
-    U = np.zeros((n, 2 * n - 1), dtype=np.float32)
-    U[np.arange(n), 2 * np.arange(n)] = 1.0
-    for i in range(n - 1):
-        for m, w in enumerate(_CR_HALF[::-1]):
-            j = min(max(i + m - 1, 0), n - 1)
-            U[j, 2 * i + 1] += float(w)
-    return U
-
-
 def _upsample_axis(vol: jnp.ndarray, axis: int) -> jnp.ndarray:
     """x2 upsample along one axis: size n -> 2n-1 (original samples kept,
     half-samples by Catmull-Rom; replaces the reference's per-axis cubic
     spline, mad/MapSpace.py:191-214)."""
-    if _banded_ok(vol.shape[axis], 7):
-        out = jnp.tensordot(vol, _upsample_matrix(vol.shape[axis]),
-                            axes=((axis,), (0,)),
-                            precision=lax.Precision.HIGHEST)
-        return jnp.moveaxis(out, -1, axis)
     moved = jnp.moveaxis(vol, axis, -1)
     n = moved.shape[-1]
     padded = jnp.concatenate(

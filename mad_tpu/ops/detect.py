@@ -3,7 +3,7 @@
 Replaces Detector.find_anchors / check_localize (mad/Detector.py:18-123):
   * peaks = voxels equal to their 3x3x3 neighborhood max, above an absolute
     threshold, away from the (real) border by ``exclude_border`` voxels;
-  * top-K peaks by response fill a static-capacity buffer (TPU: fixed shapes
+  * top-K peaks by response fill a static-capacity buffer (fixed shapes
     instead of the reference's variable-length Python lists);
   * each peak runs <=5 Newton iterations on a finite-difference Hessian and
     gradient; offsets > 0.6 walk one voxel toward the offset, convergence
@@ -21,11 +21,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
+from jax.sharding import Mesh, PartitionSpec as P
 
 from ..core.config import DetectConfig
 from ..utils.warmup import warmable
@@ -103,22 +100,56 @@ def _neg_semidefinite(H: jnp.ndarray) -> jnp.ndarray:
     return (i1 <= 0) & (i2 >= 0) & (i3 <= 0)
 
 
+def top_peaks(scores: jnp.ndarray, capacity: int):
+    """(values, flat indices) of the ``capacity`` largest entries of a flat
+    score vector whose non-peaks hold -inf, exactly as ``lax.top_k``
+    returns them.
+
+    Above 2^22 entries the top-k runs in two stages: per 4096-entry
+    segment a top-512, then a top-k over the candidates. Peaks are at
+    least 2 voxels apart, so no segment holds 512 of them and the result is
+    exact; segment-major candidate order is flat-index order, so even ties
+    come out as the flat top_k orders them. On an H100 one flat top_k over
+    the bench's octave 0 (2.35e8 scores, one radix sort) is faster alone
+    (8.0 vs 14.3 ms), but the fused describe chain with the two-stage form
+    won 5 of 6 end-to-end pairs of the steady bench pass."""
+    v = scores.shape[0]
+    if v <= (1 << 22):
+        return lax.top_k(scores, capacity)
+    block = 4096
+    seg = jnp.pad(scores, (0, (-v) % block), constant_values=-jnp.inf)
+    seg = seg.reshape(-1, block)
+    svals, scols = lax.top_k(seg, min(512, block, capacity))
+    base = (jnp.arange(seg.shape[0], dtype=jnp.int32) * block)[:, None]
+    cand_idx = (base + scols).reshape(-1)
+    vals, sub = lax.top_k(svals.reshape(-1), capacity)
+    return vals, cand_idx[sub]
+
+
+def collect_peaks(vol: jnp.ndarray, real_shape: Tuple[int, int, int],
+                  threshold: float, exclude_border: int, capacity: int):
+    """Seed collection: ``top_peaks`` over the local maxima of ``vol``
+    (equal to their 3x3x3 neighbourhood max, above ``threshold``, at least
+    ``exclude_border`` voxels inside the real extent)."""
+    rx, ry, rz = real_shape
+    eb = exclude_border
+    pooled = _maxpool3(vol)
+    x = jnp.arange(vol.shape[0])[:, None, None]
+    y = jnp.arange(vol.shape[1])[None, :, None]
+    z = jnp.arange(vol.shape[2])[None, None, :]
+    interior = ((x >= eb) & (x < rx - eb) & (y >= eb) & (y < ry - eb)
+                & (z >= eb) & (z < rz - eb))
+    is_peak = (vol >= pooled) & (vol > threshold) & interior
+    return top_peaks(jnp.where(is_peak, vol, -jnp.inf).reshape(-1),
+                     capacity)
+
+
 def _detect_core(shape: Tuple[int, int, int],
                  real_shape: Tuple[int, int, int],
                  threshold: float, exclude_border: int, max_offset: float,
-                 n_iter: int, capacity: int, mesh: Mesh = None,
-                 approx_peaks: bool = False):
+                 n_iter: int, capacity: int, mesh: Mesh = None):
     """Builds the (unjitted) detection closures; shared by the standalone
-    program and the fused log+detect program (ops/scalespace.py).
-
-    approx_peaks: candidate collection through lax.approx_max_k (the TPU
-    PartialReduce op) instead of the exact two-stage top_k — 5x faster on
-    10^8-voxel octaves (measured 40 ms vs 208 ms). ApproxTopK can drop a
-    true peak when two land in one reduction bucket, so the EXACT peak
-    count rides along in the returned guard counts: the caller redoes the
-    chain with approx_peaks=False whenever the approx pass returned fewer
-    above-threshold seeds than exist (engine/pipeline.describe_grid folds
-    this into its overflow-redo protocol, so steady state never pays it)."""
+    program and the fused log+detect program (ops/scalespace.py)."""
     rx, ry, rz = real_shape
     eb = exclude_border
 
@@ -162,60 +193,18 @@ def _detect_core(shape: Tuple[int, int, int],
         good = accepted & _neg_semidefinite(H)
         return pos, pos.astype(vol.dtype) + offset, good
 
-    def topk_flat(scores):
-        v = scores.shape[0]
-        if approx_peaks and v > (1 << 22):
-            return lax.approx_max_k(scores, capacity, recall_target=0.99,
-                                    aggregate_to_topk=True)
-        if v > (1 << 22):
-            # Two-stage top-k: a flat top_k over 10^8+ voxels is the
-            # detection bottleneck. Peaks are >=2 voxels apart, so a
-            # 4096-voxel segment holds far fewer than 512 peaks; per-segment
-            # top-512 then a global top-k is exact in practice and ~10x
-            # cheaper (segment-major candidate order = flat-index order, so
-            # even tie ordering matches the flat top_k).
-            block = 4096
-            pad = (-v) % block
-            seg = jnp.pad(scores, (0, pad), constant_values=-jnp.inf)
-            seg = seg.reshape(-1, block)
-            kseg = min(512, block, capacity)
-            svals, scols = lax.top_k(seg, kseg)
-            base = (jnp.arange(seg.shape[0], dtype=jnp.int32) * block)[:, None]
-            cand_idx = (base + scols).reshape(-1)
-            cand_vals = svals.reshape(-1)
-            vals, sub = lax.top_k(cand_vals, capacity)
-            return vals, cand_idx[sub]
-        return lax.top_k(scores, capacity)
-
-    def detect_counts(vol):
-        pooled = _maxpool3(vol)
-        x = jnp.arange(shape[0])[:, None, None]
-        y = jnp.arange(shape[1])[None, :, None]
-        z = jnp.arange(shape[2])[None, None, :]
-        interior = ((x >= eb) & (x < rx - eb) & (y >= eb) & (y < ry - eb)
-                    & (z >= eb) & (z < rz - eb))
-        is_peak = (vol >= pooled) & (vol > threshold) & interior
-        scores = jnp.where(is_peak, vol, -jnp.inf).reshape(-1)
-        vals, flat_idx = topk_flat(scores)
+    def detect(vol):
+        vals, flat_idx = collect_peaks(vol, real_shape, threshold, eb,
+                                       capacity)
         seeds = jnp.stack(jnp.unravel_index(flat_idx, shape), axis=-1
                           ).astype(jnp.int32)
         valid_seed = vals > threshold
-        # Approx-exactness guard: the exact peak count vs how many seeds
-        # the (possibly approximate) collection returned. The caller
-        # treats n_seed < min(n_peaks, capacity) — or a capacity-full
-        # volume under approx collection — as "redo exact".
-        guard = jnp.stack([jnp.sum(is_peak.reshape(-1), dtype=jnp.int32),
-                           jnp.sum(valid_seed, dtype=jnp.int32)])
         # Clamp invalid seeds into the interior so gathers stay in range.
         seeds = jnp.clip(seeds, eb, jnp.array([rx, ry, rz]) - eb - 1)
         pos, subvox, good = jax.vmap(localize, in_axes=(None, 0))(vol, seeds)
-        return pos, subvox, vals, valid_seed & good, guard
-
-    def detect(vol):
-        return detect_counts(vol)[:4]
+        return pos, subvox, vals, valid_seed & good
 
     if mesh is None:
-        detect.counts = detect_counts
         return detect
 
     # Capacity mode (multi-chip): the LoG volume STAYS sharded in x-slabs —
@@ -245,7 +234,7 @@ def _detect_core(shape: Tuple[int, int, int],
                     & (z >= eb) & (z < rz - eb))
         is_peak = (vol_block >= pooled) & (vol_block > threshold) & interior
         scores = jnp.where(is_peak, vol_block, -jnp.inf).reshape(-1)
-        vals_l, flat_l = topk_flat(scores)
+        vals_l, flat_l = top_peaks(scores, capacity)
         seeds_l = jnp.stack(
             jnp.unravel_index(flat_l, (blk,) + shape[1:]), axis=-1
         ).astype(jnp.int32) + jnp.array([x0, 0, 0], jnp.int32)[None]

@@ -11,8 +11,7 @@ def trilinear(field: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
 
     Matches scipy RegularGridInterpolator(method='linear') inside bounds
     (used by the rigid refiner, mad/structure_utils.py:76-80). The 8 corner
-    reads use flat indices into the collapsed volume — measurably faster on
-    TPU than multi-dimensional gathers.
+    reads are 1D gathers of flat indices into the collapsed volume.
     """
     x, y, z = field.shape[:3]
     flat = field.reshape(-1, field.shape[3])
@@ -39,10 +38,12 @@ def pack_corners(field: jnp.ndarray, dtype=None) -> jnp.ndarray:
 
     Returns ((X-1)*(Y-1)*(Z-1), 32) rows where channels 4c..4c+2 hold the
     3-vector at corner offset c of the cell. One row gather (128 B at f32,
-    64 B at bf16) then replaces the 8 corner gathers of ``trilinear``
-    (~2x faster on TPU at 8x the memory: use for hot loops like the rigid
-    refiner). dtype: optional row storage dtype (e.g. bfloat16 halves the
-    row size; values round per element, interpolation weights stay f32).
+    64 B at bf16) then replaces the 8 corner gathers of ``trilinear`` at
+    8x the field memory: on an H100 (700 W), 500 dependent steps of 128
+    candidates x 1280 atoms over the bench map's gradient take 14.5 ms
+    packed against 39.3 ms with 8 gathers. dtype: optional row storage
+    dtype (e.g. bfloat16 halves the row size; values round per element,
+    interpolation weights stay f32).
     """
     x, y, z = field.shape[:3]
     if dtype is not None:

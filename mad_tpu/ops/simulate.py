@@ -1,4 +1,4 @@
-"""Structure -> simulated density map (TPU scatter + separable blur).
+"""Structure -> simulated density map (device scatter + separable blur).
 
 Replaces PDB.structure_to_density (mad/PDB.py:131-208) and
 interpolate_to_grid_massweighted (mad/PDB.py:215-292):

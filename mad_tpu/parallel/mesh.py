@@ -5,7 +5,7 @@ The reference is single-process NumPy with no distribution of any kind
 component: volumes shard spatially (XLA GSPMD inserts halo exchanges for the
 separable convolutions), and the embarrassingly parallel axes (descriptor
 pairs, pose candidates) shard as data parallelism with collective top-k /
-gather reductions over ICI.
+gather reductions between devices.
 """
 
 from __future__ import annotations
@@ -49,10 +49,8 @@ def batch_bucket(n: int, base: int, mesh: Optional[Mesh]) -> int:
     return ((int(n) + step - 1) // step) * step
 
 
-try:                                  # public from jax 0.10
-    from jax.lax import all_gather_invariant as gather_invariant
-except ImportError:                   # 0.9: implemented but not exported
-    from jax._src.lax.parallel import all_gather_invariant as gather_invariant
+# jax 0.9 implements all_gather_invariant but does not export it.
+from jax._src.lax.parallel import all_gather_invariant as gather_invariant
 
 
 def pvary(x, axis: str):

@@ -6,8 +6,8 @@ Runs the PRODUCTION pipeline with a mesh — the exact code path
     halo exchange), anchor orientation + descriptors shard_map'ed over the
     anchor/lane axes (DP);
   * dock: descriptor similarity with the subunit rows sharded (GSPMD matmul
-    + global top-k over ICI), pair repeatability shard_map'ed over the pair
-    axis (DP), rigid refinement shard_map'ed over pose candidates (DP).
+    + global top-k across devices), pair repeatability shard_map'ed over the
+    pair axis (DP), rigid refinement shard_map'ed over pose candidates (DP).
 
 This is the step the driver compile-checks with
 ``xla_force_host_platform_device_count`` (no real multi-chip needed); the

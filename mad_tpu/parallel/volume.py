@@ -22,10 +22,7 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..ops.convolve import gaussian_kernel1d, conv1d_along, log_filter3d
 

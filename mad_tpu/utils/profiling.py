@@ -37,29 +37,46 @@ def device_bytes_in_use() -> int:
 
 @contextlib.contextmanager
 def stage(name: str, sync: bool = False):
-    """Accumulate wall-clock for a named pipeline stage. With sync=True,
-    blocks on outstanding device work so the number is honest.
+    """Accumulate wall-clock for a named pipeline stage.
+
+    Yields a list. With sync=True the timer stops only once every array
+    the block appended to it is ready: a GPU runs programs on several
+    streams, so only waiting on the stage's own outputs fences its work
+    (a fresh transfer such as ``device_put(0.0)`` can finish first).
 
     MAD_TPU_HBM=1 additionally samples device bytes_in_use at the stage
     boundary and keeps the per-stage high-water mark (the donation /
     memory audit for the big volumes, SURVEY §5 sanitizers row); each
     sample is one backend RPC, so the mode stays opt-in."""
     t0 = time.perf_counter()
+    fence: list = []
     try:
-        yield
+        yield fence
     finally:
         if sync:
-            try:
-                jax.block_until_ready(
-                    jax.device_put(0.0))  # cheap fence
-            except Exception:
-                pass
+            jax.block_until_ready(fence)
         if _hbm_enabled():
             b = device_bytes_in_use()
             if b > _HBM_PEAK[name]:
                 _HBM_PEAK[name] = b
         _STAGES[name] += time.perf_counter() - t0
         _COUNTS[name] += 1
+
+
+def card_info() -> str:
+    """What ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+    prints (one line per card), read by a child process that stays off
+    JAX; "not available" where nvidia-smi is missing or fails."""
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    text = out.stdout.strip()
+    return text if out.returncode == 0 and text else "not available"
 
 
 def show_timing(reset: bool = False) -> Dict[str, float]:
@@ -90,8 +107,11 @@ def get_timings() -> Dict[str, float]:
 
 
 @contextlib.contextmanager
-def device_trace(logdir: str = "/tmp/mad_tpu_trace"):
-    """jax.profiler trace around a block (view with tensorboard/xprof)."""
+def device_trace(logdir: str = ""):
+    """jax.profiler trace around a block (view with tensorboard/xprof);
+    the default directory is ``mad_tpu_trace`` under the temp dir."""
+    import tempfile
+    logdir = logdir or os.path.join(tempfile.gettempdir(), "mad_tpu_trace")
     os.makedirs(logdir, exist_ok=True)
     jax.profiler.start_trace(logdir)
     try:

@@ -1,13 +1,12 @@
 """Bench-shape sharded dryrun: the fused dock path on a virtual 8-device
-mesh at >= 128^3 map scale with >= 4 subunit copies (round-3 verdict item:
-"a bench-shape sharded dryrun recorded in STATUS.md").
+mesh at >= 128^3 map scale with >= 4 subunit copies.
 
 Runs on the CPU platform with ``xla_force_host_platform_device_count=8`` —
 the same harness the driver's ``dryrun_multichip`` uses — so it validates
 that the PRODUCTION sharded pipeline (describe volume-SP + fused dock with
 pair/lane DP, engine/dock_fused shard_map variants) compiles and executes
 at north-star-like shapes without real multi-chip hardware. Wall times here
-are single-core CPU times, not TPU projections.
+are CPU times, not projections of accelerator times.
 
 Usage: python scripts/dryrun_bench_mesh.py [n_copies] [n_res] [spread]
 """

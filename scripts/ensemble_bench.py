@@ -10,8 +10,7 @@ This promotes scripts/demo_ensemble.py to the north-star system size:
 7 conformers (the true one + six smooth deformations spanning ~3-15 A),
 docked as an ensemble into the 10-copy ~256^3 10 A bench map through the
 full MaD session. Pass = the true conformer ranks FIRST on all four scores
-(mean Repeatability / Weight / mCC / RWmCC). Timing is recorded in
-STATUS.md.
+(mean Repeatability / Weight / mCC / RWmCC). Prints the timing.
 """
 
 import os

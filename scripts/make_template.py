@@ -26,7 +26,7 @@ def cell(kind, src):
 
 
 cell(MD, """
-# MaD-TPU template
+# mad_tpu template
 
 Fill in your own inputs below and run the pipeline (the structure mirrors
 the reference `MaD_template.ipynb`). The first cell builds a small

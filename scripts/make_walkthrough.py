@@ -27,15 +27,15 @@ def cell(kind, src):
 
 
 cell(MD, """
-# MaD-TPU — Macromolecular Descriptors, TPU-native
+# mad_tpu — Macromolecular Descriptors on JAX
 
-This walkthrough contains all the necessary information to run MaD-TPU. It
+This walkthrough contains all the necessary information to run mad_tpu. It
 mirrors the reference MaD walkthrough (`MaD_notebook_instructions.ipynb`)
 section by section; because the reference's EMDB/PDB testing data is not
 redistributable, the runnable examples here build **synthetic self-fit
 systems** (simulated assemblies, the protocol of the reference's own
 simulated dataset, notebook cell 22). Every cell runs end-to-end on one
-TPU chip or on CPU.
+GPU or on CPU.
 
 1. **Minimal examples**
     1. Homomultimer (synthetic trimer) + output explanation
@@ -43,7 +43,7 @@ TPU chip or on CPU.
 2. **Tweaking parameters** — the reference's documented system matrix
 3. **Ensemble docking**
 4. **Anchor files**
-5. **TPU notes: meshes, caches, performance**
+5. **Device notes: meshes, caches, debugging**
 
 You'll find the solutions in the `individual_solutions` and
 `assembly_models` subfolders within the folder created for your assembly,
@@ -285,16 +285,17 @@ can be enabled with `mad.save_pre_solutions = True` before `run()`.
 """)
 
 cell(MD, """
-## 5. TPU notes: meshes, caches, performance
+## 5. Device notes: meshes, caches, debugging
 
-* **Multi-chip**: pass a mesh to shard the whole pipeline —
+* **Multi-device**: pass a mesh to shard the whole pipeline —
   `MaD(workdir, mesh="auto")` uses every local device; `mesh=None`
   (default) runs single-device. Volumes shard spatially for the
   scale-space filters, anchors/descriptor-pairs/pose-candidates shard
-  across chips for the gather/matmul stages; results equal the
+  across devices for the gather/matmul stages; results equal the
   single-device run.
-* **Compile cache**: XLA programs persist in `~/.cache/mad_tpu_xla`
-  (override with `MAD_TPU_CACHE`), so repeat runs skip compilation.
+* **Compile cache**: XLA programs persist in `JAX_COMPILATION_CACHE_DIR`
+  when it is set, else in `.jax_cache/` inside the checkout (override
+  with `MAD_TPU_CACHE`), so repeat runs skip compilation.
 * **Descriptor cache**: `dsc_db/*.h5` holds descriptors keyed by all
   describe parameters; delete it to force recomputation.
 * **NaN debugging**: set `MAD_TPU_NANCHECK=1` (or call

@@ -36,10 +36,7 @@ def _assert_sharded(arr, mesh):
 @needs_devices
 def test_halo_extend_matches_pad():
     from mad_tpu.parallel.volume import halo_extend
-    try:
-        from jax import shard_map
-    except ImportError:
-        from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     rng = np.random.default_rng(0)
     mesh = make_mesh(4)

@@ -60,34 +60,61 @@ def test_log_filter_matches_scipy_interior():
                                refg[6:-6, 6:-6, 6:-6], atol=1e-4)
 
 
-def test_banded_matmul_matches_shift_add(monkeypatch):
-    """The TPU banded-matmul conv path (one MXU contraction per axis) must
-    reproduce the shift-and-add results; forced on here on CPU."""
-    from mad_tpu.ops import convolve as cv
+def _catmull_rom_up_ref(x: np.ndarray, axis: int) -> np.ndarray:
+    """float64 x2 upsampling along one axis: originals on even samples,
+    Catmull-Rom half samples (edge-replicated) on odd ones."""
+    x = np.moveaxis(x.astype(np.float64), axis, -1)
+    n = x.shape[-1]
+    i = np.arange(n - 1)
+    at = lambda j: x[..., np.clip(j, 0, n - 1)]
+    half = (-at(i - 1) + 9 * at(i) + 9 * at(i + 1) - at(i + 2)) / 16.0
+    out = np.zeros(x.shape[:-1] + (2 * n - 1,))
+    out[..., 0::2] = x
+    out[..., 1::2] = half
+    return np.moveaxis(out, -1, axis)
 
-    rng = np.random.default_rng(3)
-    vol = rng.normal(size=(20, 18, 17)).astype(np.float32)
-    k0 = gaussian_kernel1d(1.6, 0)
-    ref_g = np.asarray(gaussian_filter3d(jnp.asarray(vol), 1.6))
-    ref_log, ref_gauss = log_filter3d(jnp.asarray(vol), 1.6)
-    ref_full = np.asarray(conv1d_along(jnp.asarray(vol), k0, 1,
-                                       mode="full"))
-    ref_up = np.asarray(upsample2(jnp.asarray(vol)))
 
-    monkeypatch.setattr(cv, "_banded_ok", lambda n, ksz: True)
-    np.testing.assert_allclose(
-        np.asarray(gaussian_filter3d(jnp.asarray(vol), 1.6)), ref_g,
-        atol=2e-5)
-    log_b, gauss_b = log_filter3d(jnp.asarray(vol), 1.6)
-    np.testing.assert_allclose(np.asarray(log_b), np.asarray(ref_log),
-                               atol=2e-5)
-    np.testing.assert_allclose(np.asarray(gauss_b), np.asarray(ref_gauss),
-                               atol=2e-5)
-    np.testing.assert_allclose(
-        np.asarray(conv1d_along(jnp.asarray(vol), k0, 1, mode="full")),
-        ref_full, atol=2e-5)
-    np.testing.assert_allclose(np.asarray(upsample2(jnp.asarray(vol))),
-                               ref_up, atol=2e-5)
+@pytest.mark.parametrize("op,mode,n,ksz,axis", [
+    ("conv", "same", 8, 3, 2),
+    ("conv", "same", 64, 17, 0),      # wide kernel, even n
+    ("conv", "same", 71, 9, 1),       # wide kernel, odd n
+    ("conv", "same", 66, 8, 2),       # even tap count
+    ("conv", "full", 9, 5, 1),
+    ("conv", "full", 64, 7, 2),
+    ("conv", "full", 97, 17, 0),
+    ("up", None, 64, None, 0),
+    ("up", None, 67, None, 1),
+    ("up", None, 9, None, 2),
+])
+def test_separable_ops_match_float64_reference(op, mode, n, ksz, axis):
+    """conv1d_along against scipy.ndimage.correlate1d (with the kernel
+    reversed, zero boundary) and upsample2 against a float64 Catmull-Rom
+    reference, at the widths and tap counts the describe stage uses."""
+    rng = np.random.default_rng(n * 31 + axis)
+    shape = [5, 6, 7]
+    shape[axis] = n
+    vol = rng.normal(size=shape).astype(np.float32)
+    if op == "conv":
+        k = rng.normal(size=ksz).astype(np.float32)
+        got = np.asarray(conv1d_along(jnp.asarray(vol), k, axis, mode=mode))
+        w = k[::-1].astype(np.float64)
+        x = vol.astype(np.float64)
+        if mode == "same":
+            ref = ndimage.correlate1d(x, w, axis=axis, mode="constant")
+        else:
+            pad = [(0, 0)] * 3
+            pad[axis] = (ksz - 1, ksz - 1)
+            full = ndimage.correlate1d(np.pad(x, pad), w, axis=axis,
+                                       mode="constant")
+            ref = np.take(full, np.arange(n + ksz - 1) + ksz // 2, axis=axis)
+        np.testing.assert_allclose(got, ref, atol=2e-5, rtol=1e-5)
+    else:
+        got = np.asarray(upsample2(jnp.asarray(vol)))
+        ref = vol.astype(np.float64)
+        for a in range(3):
+            ref = _catmull_rom_up_ref(ref, a)
+        assert got.shape == tuple(2 * s - 1 for s in shape)
+        np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)
 
 
 def test_upsample2_shape_and_exactness():

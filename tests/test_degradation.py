@@ -1,7 +1,7 @@
 """Mid-ladder degradation regression (round-4 verdict item 3).
 
 The full ladder (SNR sweep to failure, B-factor ramp, anisotropic smear)
-runs on TPU via scripts/degradation_ladder.py and is tabulated in
+runs on the GPU via scripts/degradation_ladder.py and is tabulated in
 PARITY.md. This test pins the mid-ladder point — 10 % white noise over a
 5 % background plateau, isovalue-clamped — as a regression: docking at
 the reference's noisy-system knobs (run_MaD.py:43-47) must still recover

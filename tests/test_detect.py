@@ -53,3 +53,39 @@ def test_capacity_keeps_strongest():
     vals = np.asarray(a.values)[np.asarray(a.valid)]
     # The 4 retained anchors are the strongest ones
     assert vals.min() > 0.4
+
+
+def test_collect_peaks_matches_host_reference_above_2_pow_22():
+    """Seed collection on an octave larger than 2^22 voxels (the two-stage
+    top-k), with more peaks than capacity, returns exactly the host
+    reference's index set (scipy 3x3x3 maximum filter + np.argpartition)
+    and exactly what one flat lax.top_k returns, order included."""
+    import jax
+    from scipy import ndimage
+    from mad_tpu.ops.detect import collect_peaks
+
+    rng = np.random.default_rng(5)
+    shape = (170, 165, 160)                       # 4.49 M voxels > 2^22
+    vol = ndimage.gaussian_filter(rng.normal(size=shape), 2.0
+                                  ).astype(np.float32)
+    real, eb, thr, cap = (166, 163, 158), 12, 0.01, 1024
+    fn = jax.jit(collect_peaks, static_argnums=(1, 2, 3, 4))
+    vals, idx = (np.asarray(a) for a in fn(jnp.asarray(vol), real, thr,
+                                            eb, cap))
+
+    pooled = ndimage.maximum_filter(vol, size=3, mode="constant",
+                                    cval=-np.inf)
+    x, y, z = np.indices(shape)
+    interior = ((x >= eb) & (x < real[0] - eb) & (y >= eb)
+                & (y < real[1] - eb) & (z >= eb) & (z < real[2] - eb))
+    peak = (vol >= pooled) & (vol > thr) & interior
+    assert peak.sum() > cap                       # capacity truncates
+    scores = np.where(peak, vol, -np.inf).ravel()
+    ref = np.argpartition(-scores, cap - 1)[:cap]
+    assert np.all(np.isfinite(vals))
+    assert set(idx.tolist()) == set(ref.tolist())
+    np.testing.assert_array_equal(vals, scores[idx])
+    assert np.all(np.diff(vals) <= 0)             # top_k order
+    fvals, fidx = jax.lax.top_k(jnp.asarray(scores, jnp.float32), cap)
+    np.testing.assert_array_equal(idx, np.asarray(fidx))
+    np.testing.assert_array_equal(vals, np.asarray(fvals))

@@ -79,3 +79,16 @@ def test_profiling_stage_accumulates():
     table = profiling.show_timing(reset=True)
     assert "unit_test_stage" in table
     assert "unit_test_stage" not in profiling.get_timings()
+
+
+def test_profiling_stage_sync_waits_for_stage_outputs():
+    import jax
+    import jax.numpy as jnp
+    profiling.show_timing(reset=True)
+    f = jax.jit(lambda a: jnp.cumsum(a @ a.T, axis=0))
+    with profiling.stage("sync_stage", sync=True) as fence:
+        out = f(jnp.ones((256, 256)))
+        fence.append(out)
+    assert out.is_ready()
+    assert profiling.get_timings()["sync_stage"] > 0
+    profiling.show_timing(reset=True)

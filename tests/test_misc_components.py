@@ -126,7 +126,7 @@ def test_config_survives_run_kwargs():
 
 def test_describe_many_memory_guard():
     """Concurrent describe chains serialize when the combined working
-    volumes would break the one-field-at-a-time HBM guarantee."""
+    volumes would not fit device memory side by side."""
     import threading
     from mad_tpu.engine.pipeline import describe_many
 
